@@ -1,6 +1,6 @@
 """North-star benchmark configs (BASELINE.md / RESULTS.md tables).
 
-Run on the TPU from the repo root:
+Run on the GPU from the repo root:
 
     python benchmarks/baseline_configs.py [config ...]
 
@@ -116,8 +116,10 @@ def _posterior_moment_check(s, cov, ps):
           f"max |corr err| {corr_err:.3f}", flush=True)
 
 
-def gauss50(**kw):
-    d = 50
+def gauss50_problem(d=50):
+    """The gauss50 problem: a rotated Gaussian likelihood with condition
+    number 1e3 under a N(0, 100) prior. Returns (prior, loglike, exact
+    logZ, Sampler kwargs, covariance, prior scale)."""
     rng = np.random.default_rng(0)
     evals = np.logspace(0, 3, d)
     Q, _ = np.linalg.qr(rng.normal(size=(d, d)))
@@ -130,8 +132,14 @@ def gauss50(**kw):
     prior = pc.Prior([pc.Normal(0, ps) for _ in range(d)])
     expect = multivariate_normal.logpdf(np.zeros(d), np.zeros(d),
                                         cov + ps**2 * np.eye(d))
+    return (prior, loglike, expect,
+            dict(n_effective=4096, n_active=2048), cov, ps)
+
+
+def gauss50(**kw):
+    prior, loglike, expect, sizes, cov, ps = gauss50_problem()
     s = run("gauss50 cond1e3 N(0,100)", prior, loglike, expect,
-            n_effective=4096, n_active=2048, **kw)
+            **sizes, **kw)
     _posterior_moment_check(s, cov, ps)
 
 

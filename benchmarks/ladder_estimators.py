@@ -31,7 +31,7 @@ import os
 import sys
 import numpy as np
 
-sys.path.insert(0, "/root/repo/benchmarks")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import baseline_configs as bc
 import ladder_oracles
 
@@ -79,9 +79,9 @@ def evaluate(s, expect, oracle=None, save_as=None):
     if resid.size < T:  # warmup stages predate the sweep diagnostics
         resid = np.concatenate([np.zeros(T - resid.size), resid])
     if save_as:
-        os.makedirs(".round4", exist_ok=True)
+        os.makedirs("states", exist_ok=True)
         corr_s = np.asarray(p.past.get("corr") or [], dtype=np.float64)
-        np.savez(f".round4/{save_as}_hist.npz", logl=logl, beta=beta,
+        np.savez(f"states/{save_as}_hist.npz", logl=logl, beta=beta,
                  logz=logz, resid_exit=resid, corr=corr_s,
                  expect=expect)
 

@@ -1,7 +1,7 @@
 """Mechanism probes for the SMC-ladder rung bias (round-4 follow-up).
 
 Runs OFFLINE on histories saved by ladder_estimators.py
-(.round4/<cfg>_s0_hist.npz) and answers three mechanism questions the
+(states/<cfg>_s0_hist.npz) and answers three mechanism questions the
 round-4 estimator zoo raised; results recorded in RESULTS.md round 4
 "corrlaw postmortem":
 
@@ -85,7 +85,7 @@ def padfront(a, T):
 
 
 def probe(cfg):
-    d = np.load(f".round4/{cfg}_s0_hist.npz")
+    d = np.load(f"states/{cfg}_s0_hist.npz")
     logl = np.asarray(d["logl"], np.float64)
     beta = np.asarray(d["beta"], np.float64)
     T, n = logl.shape

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pocomc_tpu as pc
 from pocomc_tpu.utils.tools import enable_compile_cache
-enable_compile_cache("/root/repo/.jax_cache")
+enable_compile_cache()
 
 def log_like(x):
     return -jnp.sum(10.0 * (x[..., ::2] ** 2 - x[..., 1::2]) ** 2

@@ -1,6 +1,6 @@
 """Blobs: per-particle auxiliary data returned by the likelihood.
 
-TPU-native port of the reference blobs example (docs/source/blobs.ipynb):
+JAX port of the reference blobs example (docs/source/blobs.ipynb):
 a scalar (host) likelihood returning extra values that are stored as a
 structured array alongside the samples.
 """

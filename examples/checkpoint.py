@@ -1,6 +1,6 @@
 """Checkpointing: save state files during a run, resume, and extend.
 
-TPU-native port of the reference checkpoint tutorial
+JAX port of the reference checkpoint tutorial
 (docs/source/checkpoint.ipynb).
 """
 

@@ -1,6 +1,6 @@
 """Bayesian model fitting: cosine signal with linearly-evolving amplitude.
 
-TPU-native port of the reference fitting tutorial
+JAX port of the reference fitting tutorial
 (docs/source/fitting.ipynb): 4 parameters, 100 data points, uniform
 priors. The likelihood is vectorized over the particle batch so the whole
 residual computation is one (n_particles, n_data) broadcast on device.

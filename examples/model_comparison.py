@@ -1,6 +1,6 @@
 """Bayesian model comparison: constant vs linearly-evolving amplitude.
 
-TPU-native port of the reference tutorial (docs/source/model_comparison.ipynb):
+JAX port of the reference tutorial (docs/source/model_comparison.ipynb):
 run the sampler once per model, compare evidences via the Bayes factor.
 """
 

@@ -1,9 +1,9 @@
 """Parallel likelihood evaluation.
 
 The reference parallelizes scalar likelihood calls over process/MPI pools
-(docs/source/parallelization.ipynb). On TPU the preferred route is the
-device mesh — particles shard over chips and the (JAX) likelihood runs
-SPMD — with host pools kept for black-box Python likelihoods.
+(docs/source/parallelization.ipynb). On GPUs the preferred route is the
+device mesh — particles shard over the cards and the (JAX) likelihood
+runs SPMD — with host pools kept for black-box Python likelihoods.
 """
 
 import sys as _sys

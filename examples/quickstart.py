@@ -1,6 +1,6 @@
 """Quickstart: sample the 10-D Rosenbrock distribution.
 
-TPU-native port of the reference quickstart (docs/source/quickstart.ipynb):
+JAX port of the reference quickstart (docs/source/quickstart.ipynb):
 the likelihood is written in JAX so it compiles straight into the sampler's
 fused MCMC sweeps.
 """

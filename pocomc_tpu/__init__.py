@@ -1,11 +1,12 @@
-"""pocomc_tpu: TPU-native Preconditioned Monte Carlo.
+"""pocomc_tpu: Preconditioned Monte Carlo on JAX accelerators.
 
 A from-scratch JAX/XLA re-design of the capabilities of pocoMC
 (Karamanis et al., arXiv:2207.05660): adaptive-temperature Sequential
 Monte Carlo with t-preconditioned Crank-Nicolson / random-walk Metropolis
 mutation kernels, normalizing-flow preconditioning (MAF / NSF), persistent
 sampling, and flow-importance-sampling evidence estimation — with every
-hot loop compiled to TPU and particles shardable over a device mesh.
+hot loop compiled for the accelerator (an NVIDIA GPU) and particles
+shardable over a device mesh.
 
 Public API mirrors the reference package surface
 (/root/reference/pocomc/__init__.py:27-31).

@@ -1,14 +1,14 @@
 """MCMC mutation kernels: t-preconditioned Crank-Nicolson and random-walk
 Metropolis, with and without normalizing-flow preconditioning.
 
-TPU-native re-design of reference /root/reference/pocomc/mcmc.py:7-654.
+JAX re-design of reference pocomc/mcmc.py:7-654.
 The reference runs a host `while True` loop with per-walker Python `for k`
 loops for the InvGamma scale draws, proposals and Student-t quadratic forms
 (mcmc.py:79-85, 127-129) — O(n_active * d^2) host work per step. Here the
 entire adaptive sweep is ONE jitted program:
 
   - proposals, quadratic forms and Metropolis corrections are batched
-    einsums/matmuls over the whole (n_active, d) population (MXU work),
+    einsums/matmuls over the whole (n_active, d) population,
   - the adaptive-length loop (plateau termination + diminishing adaptation,
     reference mcmc.py:152-180) is a `lax.while_loop` whose carry holds
     (state, sigma, mu, counters, RNG key),
@@ -105,7 +105,7 @@ MIN_CALIB_N = 16
 # --- live per-step sweep statistics tap ---------------------------------
 # The reference prints calls/acc/steps DURING a sweep (mcmc.py:159-167);
 # the fused lax.while_loop sweep is otherwise a black box until it
-# returns. On backends with host-callback support the sweep body can emit
+# returns. The sweep body can emit
 # its packed stats each step through jax.debug.callback into a
 # process-global sink (one sweep runs at a time per process). The sink is
 # looked up at call time, so the emitting program stays shareable: with
@@ -130,15 +130,16 @@ def make_loglike_device(fn, vectorize: bool, traceable: bool, dtype=jnp.float32)
     inside jit. Non-finite-mask rows receive -inf without being evaluated
     (callback path) or with sanitized inputs (traced path).
 
-    The traced path runs under matmul precision 'float32': the TPU
-    default quantizes matmul/einsum INPUTS to bf16 (~3 decimal digits),
-    and a user likelihood built on einsums (e.g. a Gaussian quadratic
-    form) then returns logl with O(|logl| * 4e-3) noise. That noise
-    inflates every logsumexp-based weight reduction by ~sigma^2/2 nats
-    and compounds through the persistent-sampling logz ladder (measured:
-    +2.1 nats SMC-evidence error on the 50-D cond-1e3 Gaussian, gone at
-    f32 precision; RESULTS.md round 3). Likelihood matmuls are a tiny
-    fraction of sweep compute, so the extra MXU passes are noise."""
+    The traced path runs under matmul precision 'float32': a default
+    precision that rounds matmul/einsum INPUTS (bf16 keeps ~3 decimal
+    digits, and GPUs may use TF32) makes a user likelihood built on
+    einsums (e.g. a Gaussian quadratic form) return logl with
+    O(|logl| * 4e-3) noise. That noise inflates every logsumexp-based
+    weight reduction by ~sigma^2/2 nats and compounds through the
+    persistent-sampling logz ladder (measured with bf16 inputs: +2.1
+    nats SMC-evidence error on the 50-D cond-1e3 Gaussian, gone at f32
+    precision; RESULTS.md round 3). Likelihood matmuls are a tiny
+    fraction of sweep compute."""
     if traceable:
         fn32 = f32_precision(fn)
 
@@ -167,7 +168,7 @@ def make_loglike_device(fn, vectorize: bool, traceable: bool, dtype=jnp.float32)
 
 def f32_precision(fn):
     """Wrap a traced callable so its body runs under matmul precision
-    'float32' — the one-line enforcement point for the bf16-default
+    'float32' — the one-line enforcement point for the reduced-precision
     hazard documented in make_loglike_device. Use this for EVERY path
     that traces user likelihood/prior code into a program."""
     def wrapped(*args, **kwargs):
@@ -297,7 +298,7 @@ def make_sweep(
         den = jnp.sqrt(jnp.mean(v0c * v0c, axis=0)
                        * jnp.mean(vc * vc, axis=0))
         return jnp.max(jnp.abs(num) / jnp.maximum(den, 1e-12))
-    # Gradient kernels (beyond-reference, TPU-native: autodiff through
+    # Gradient kernels (beyond-reference, JAX-native: autodiff through
     # the composed flow/scaler/likelihood program); acceptance optima
     # 0.574 (MALA, Roberts & Rosenthal 1998) / 0.651 (HMC, Beskos et al.
     # 2013) vs 0.234 for the random-walk kernels. Both require a
@@ -531,8 +532,7 @@ def make_sweep(
         = [i, cnt, sigma, mean_alpha, corr, hot, resid, var_logl] as one
         f32 vector
         so the stepped host driver syncs ONE transfer per step instead of
-        seven scalar pulls (each a full round trip on a high-latency
-        link)."""
+        seven scalar pulls (each a full host-device round trip)."""
         nu = geom.get("t_nu")
         n = st.u.shape[0]
         i1 = (st.i + 1).astype(st.sigma.dtype)
@@ -715,7 +715,7 @@ def make_sweep(
             # left with 1-2 rows whose heavy-tailed z's fire
             # spuriously, pinning hot=1 and stretching 4-step sweeps
             # to 40+ (measured: d=4 Gaussian, calls 9.2k -> 17.5k;
-            # .round5/ablate_imh.py). A mostly-refreshed population is
+            # RESULTS.md round 5). A mostly-refreshed population is
             # decorrelated BY CONSTRUCTION, so the window reads QUIET
             # (and resid -> 0) unless enough never-refreshed rows
             # exist for the drift statistics to mean anything.
@@ -885,7 +885,7 @@ def make_sweep(
                 # O(1e6)) while the ACTUAL rung errors there are ~0
                 # (oracle forensics, RESULTS.md round 4) — the unguarded
                 # rule demanded corr < 4e-7, pinned those sweeps at n_max
-                # and spent 5.8x the call budget (.round4/exp3). Flooring
+                # and spent 5.8x the call budget (RESULTS.md round 4). Flooring
                 # the demanded decorrelation at the unrelaxed blanket
                 # target caps per-rung spending at what the old d-scaled
                 # rule would have paid, so the rate rule can only
@@ -1089,8 +1089,8 @@ def make_sweep(
     sweep.raw = _sweep_impl
 
     # stepped-mode handles (host drives the loop; likelihood runs on host
-    # BETWEEN these two jitted halves — required where the backend lacks
-    # host callbacks, and for blob tracking through accept/reject)
+    # BETWEEN these two jitted halves — used for blob tracking through
+    # accept/reject)
     sweep.init_state = jax.jit(init_state)
     sweep.propose = jax.jit(propose)
     sweep.accept_update = jax.jit(accept_update)

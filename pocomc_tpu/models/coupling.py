@@ -1,6 +1,6 @@
 """Coupling-layer spline flows: one MLP pass in BOTH directions.
 
-A TPU-first addition beyond the reference's menu (which is autoregressive
+An addition beyond the reference's menu (which is autoregressive
 only — /root/reference/pocomc/flow.py:54-86): the masked-autoregressive
 inverse needs d sequential passes (a lax.scan in models/flow.py), which is
 the hot op of the t-pCN sweep. RealNVP-style coupling layers (Dinh et al.

@@ -5,12 +5,10 @@ This replaces the libtorch/zuko MaskedMLP used by the reference flows
 hidden_features=[n_hidden]*3, residual=True, where n_hidden =
 max(next_pow2(3*n_dim), 32) — flow.py:49-52). Capacity here matches that.
 
-Design notes (TPU):
+Design notes:
   - masks are static constants baked into the jitted program; the masked
-    matmul is `x @ (w * mask)` which XLA fuses into a single MXU matmul
-    with an elementwise pre-multiply (hand-written Pallas variants were
-    measured at parity or worse and deleted; RESULTS.md "Pallas
-    postmortem"),
+    matmul is `x @ (w * mask)`, which XLA compiles as one matmul with an
+    elementwise pre-multiply,
   - residual connections on the equal-width hidden layers preserve the
     autoregressive degree structure (identity keeps degrees),
   - the final layer is zero-initialized so every flow starts at the
@@ -54,9 +52,8 @@ def init_made(rng: np.random.Generator, n_dim: int, hidden_sizes: list[int],
     """Initialize MADE parameters; returns (params_pytree, static_masks).
 
     Initialization runs in host numpy (a np.random.Generator, not a JAX
-    key): eager per-layer jax.random calls each cost a device round trip,
-    which dominates constructor time behind a remote-accelerator link.
-    The caller device_puts the finished pytree once.
+    key): eager per-layer jax.random calls would each dispatch a device
+    op. The caller device_puts the finished pytree once.
     """
     degs = make_degrees(n_dim, order, hidden_sizes)
     masks = make_masks(degs, n_dim, n_params)

@@ -61,26 +61,6 @@ def rqs_n_params(bins: int) -> int:
     return 3 * bins - 1
 
 
-def _cumsum_last(a, k: int):
-    """Cumulative sum over a small trailing axis as an upper-triangular
-    matmul. Equivalent to jnp.cumsum(a, -1) for k lanes, but lowers
-    everywhere (Pallas TPU has no cumsum primitive) and is a single
-    fused contraction for the k <= 9 spline axes used here. The
-    triangular mask is built from iotas, not a materialized constant —
-    Pallas kernels reject captured device arrays."""
-    r = jax.lax.broadcasted_iota(jnp.int32, (k, k), 0)
-    c = jax.lax.broadcasted_iota(jnp.int32, (k, k), 1)
-    tri = (r <= c).astype(a.dtype)
-    return jnp.dot(a, tri, preferred_element_type=a.dtype)
-
-
-def _set_last(a, value):
-    """a.at[..., -1].set(value) as an iota-mask select (Pallas TPU has no
-    scatter primitive; XLA fuses this identically)."""
-    idx = jax.lax.broadcasted_iota(jnp.int32, a.shape, a.ndim - 1)
-    return jnp.where(idx == a.shape[-1] - 1, jnp.asarray(value, a.dtype), a)
-
-
 def _rqs_setup(params, bins: int):
     """Raw params (..., 3*bins-1) -> knot positions and derivatives."""
     B = SPLINE_BOUND
@@ -93,12 +73,12 @@ def _rqs_setup(params, bins: int):
     widths = widths * 2 * B
     heights = heights * 2 * B
 
-    cw = _cumsum_last(widths, bins)
+    cw = jnp.cumsum(widths, axis=-1)
     xk = jnp.concatenate([jnp.full_like(cw[..., :1], -B), cw - B], axis=-1)
-    xk = _set_last(xk, B)
-    ch = _cumsum_last(heights, bins)
+    xk = xk.at[..., -1].set(B)
+    ch = jnp.cumsum(heights, axis=-1)
     yk = jnp.concatenate([jnp.full_like(ch[..., :1], -B), ch - B], axis=-1)
-    yk = _set_last(yk, B)
+    yk = yk.at[..., -1].set(B)
 
     inner = MIN_DERIV + jax.nn.softplus(d_raw + _SOFTPLUS_INV_1)
     ones = jnp.ones_like(inner[..., :1])
@@ -109,9 +89,10 @@ def _rqs_setup(params, bins: int):
 def _gather_pair(arr, oh0, oh1):
     """Gather arr[..., idx] and arr[..., idx+1] via one-hot contractions.
 
-    TPU-friendly replacement for take_along_axis: gathers lower to slow
-    scatter/gather sequences on the VPU, while a one-hot multiply-reduce
-    over K<=9 lanes is a handful of fused vector ops.
+    A one-hot multiply-reduce over the K<=9 knot lanes fuses into the
+    surrounding elementwise spline math; jnp.take_along_axis measured
+    1-5% slower inside the flow inverse on an H100 (d=10/nsf6 and
+    d=50/nsf12 at 4096 particles).
     """
     return jnp.sum(arr * oh0, axis=-1), jnp.sum(arr * oh1, axis=-1)
 

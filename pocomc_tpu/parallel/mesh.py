@@ -1,22 +1,26 @@
-"""Device-mesh parallelism: particles sharded over TPU chips.
+"""Device-mesh parallelism: particles sharded over the GPUs of a host.
 
-TPU-native replacement for the reference's process/MPI likelihood fan-out
-(/root/reference/pocomc/parallel.py:20-178, sampler.py:267-274): instead
-of shipping scalar likelihood calls to worker processes, the particle axis
-is sharded over a 1-D `jax.sharding.Mesh` and every jitted program (MCMC
-sweeps, flow training, geometry fits) runs SPMD — XLA inserts the
-collectives (psum for the acceptance/plateau means and weighted moments,
-all-gathers for resampling) over ICI.
+Device-side replacement for the reference's process/MPI likelihood
+fan-out (reference pocomc/parallel.py:20-178, sampler.py:267-274):
+instead of shipping scalar likelihood calls to worker processes, the
+particle axis is sharded over a 1-D `jax.sharding.Mesh` and every jitted
+program (MCMC sweeps, flow training, geometry fits) runs SPMD — XLA
+inserts the collectives (psum for the acceptance/plateau means and
+weighted moments, all-gathers for resampling). One process drives all
+the cards of a host; XLA hands the collectives to NCCL, which carries
+them over NVLink. Every card reaches every other at the same rate, so
+the 1-D mesh needs no topology.
 
 The SMC algorithm's only cross-particle couplings are reductions
 (SURVEY.md section 5.7), so a pure data-parallel layout is optimal: zero
 resharding inside the sweep, one all-reduce per MCMC step for the
 adaptation statistics.
 
-Multi-host: call :func:`initialize_distributed` (a thin wrapper over
+Multi-process: call :func:`initialize_distributed` (a thin wrapper over
 `jax.distributed.initialize`) in every process before constructing the
-mesh — this is the TPU-pod replacement for the reference's
-`mpiexec -n N` worker farm (/root/reference/pocomc/parallel.py:20-178).
+mesh — the device-mesh counterpart of the reference's `mpiexec -n N`
+worker farm. This path is rehearsed on CPU devices with Gloo
+collectives (parallel/smoke.py); multi-process NCCL is untested.
 Host bookkeeping stays SPMD-replicated (every process runs the same
 sampler loop over the same RNG stream); device arrays are globally
 sharded, and black-box host likelihoods fan out per-host via
@@ -40,19 +44,19 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     of the job.  Replaces the reference's MPI bootstrap: where pocoMC
     ships pickled likelihood calls to `mpiexec` workers, here every
     process joins one global device mesh and XLA moves data over
-    ICI/DCN (or Gloo on CPU).
+    NCCL (or Gloo on CPU).
 
     Parameters
     ----------
     coordinator_address : str or None
         "host:port" of process 0. None defers to JAX's cluster
-        auto-detection (TPU pods resolve this from the metadata server,
-        so on Cloud TPU `initialize_distributed()` bare is correct).
+        auto-detection, which finds nothing on a plain GPU host: pass
+        the address, `num_processes` and `process_id` there.
     num_processes, process_id : int or None
         Job size / this process's rank; None = auto-detect.
     local_device_count : int or None
         For CPU smoke tests only: virtual local device count (must be
-        set before backend init; ignored for real TPU backends).
+        set before backend init; ignored for GPU backends).
     platform : str or None
         Force a platform ("cpu" for the smoke harness); None keeps the
         environment's backend.
@@ -169,9 +173,9 @@ class ParticleMesh:
         host callback (mcmc.make_loglike_device, callback path): wraps
         it in `jax.shard_map` over the particle axis so each process's
         Python function is invoked once per local device with ONLY the
-        rows that device owns — the TPU-native analog of the reference
+        rows that device owns — the device-mesh analog of the reference
         distributing likelihood batches to MPI workers
-        (/root/reference/pocomc/parallel.py:129-158).
+        (reference pocomc/parallel.py:129-158).
 
         The wrapped callable has the same (x, mask) -> logl signature
         and is safe inside jit."""

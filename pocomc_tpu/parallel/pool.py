@@ -9,7 +9,8 @@ mpi4py is imported lazily and the class degrades to a clear error when it
 is unavailable (it is an optional dependency, reference
 docs/source/install.rst:8-11).
 
-On TPU the preferred parallelism is the device mesh (see mesh.py); these
+On accelerators the preferred parallelism is the device mesh (see
+mesh.py); these
 pools exist for likelihoods that must run as host processes.
 """
 

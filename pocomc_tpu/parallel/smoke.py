@@ -1,14 +1,14 @@
-"""Multi-process (multi-host) smoke harness.
+"""Multi-process (multi-host) smoke harness: a CPU rehearsal with Gloo.
 
 The reference's scale-out story is `mpiexec -n N python script.py` with an
 MPIPool shipping pickled likelihood calls to workers
-(/root/reference/pocomc/parallel.py:20-178,
- /root/reference/docs/source/parallelization.ipynb "MPI").  The TPU-native
-equivalent is one global `jax.sharding.Mesh` spanning every process of a
-pod, so the "does multi-host actually run?" check is: N OS processes,
-each owning a slice of devices, joining one mesh and executing the
-framework's real programs.  This module is that check, runnable anywhere
-(CPU devices + Gloo collectives, no TPU pod needed):
+(reference pocomc/parallel.py:20-178, docs/source/parallelization.ipynb
+"MPI").  The device-mesh equivalent is one global `jax.sharding.Mesh`
+spanning every process, so the "does multi-process actually run?" check
+is: N OS processes, each owning a slice of devices, joining one mesh and
+executing the framework's real programs.  This module is that check on
+CPU devices with Gloo collectives; the same path over NCCL on GPUs is
+untested:
 
     python -m pocomc_tpu.parallel.smoke            # 2 procs x 2 devices
     python -m pocomc_tpu.parallel.smoke 4 2        # 4 procs x 2 devices

@@ -2,13 +2,16 @@
 
 The default snapshot format is an atomically-written pickle
 (sampler.save_state, matching the reference's dill snapshots,
-/root/reference/pocomc/sampler.py:1023-1060). This module adds an
-orbax-backed alternative — the TPU-ecosystem standard — which stores
+reference pocomc/sampler.py:1023-1060). This module adds an
+orbax-backed alternative — JAX's own checkpoint library — which stores
 arrays as a real tensorstore checkpoint (mmap-able, incremental,
 inspectable) instead of one opaque blob:
 
     sampler.save_state("run.orbax")     # directory checkpoint
     sampler.load_state("run.orbax")
+
+orbax is an optional dependency (``pip install pocomc-tpu[orbax]``);
+only '.orbax' paths need it.
 
 Sampler state is a pytree of numpy arrays mixed with python scalars,
 strings, big RNG integers and Nones; orbax's StandardCheckpointer
@@ -24,6 +27,17 @@ from __future__ import annotations
 import numpy as np
 
 _ARRAY_MARK = "__pocomc_array__"
+
+
+def _ocp():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "'.orbax' checkpoint paths need the optional orbax package "
+            "(pip install pocomc-tpu[orbax]); any other path uses the "
+            "built-in pickle format.") from e
+    return ocp
 
 
 def _is_array(x) -> bool:
@@ -69,7 +83,7 @@ def _join(node, arrays):
 
 
 def save_orbax(state: dict, path) -> None:
-    import orbax.checkpoint as ocp
+    ocp = _ocp()
     from pathlib import Path
 
     arrays: dict[str, np.ndarray] = {}
@@ -86,7 +100,7 @@ def save_orbax(state: dict, path) -> None:
 
 
 def load_orbax(path) -> dict:
-    import orbax.checkpoint as ocp
+    ocp = _ocp()
     from pathlib import Path
 
     path = Path(path).absolute()

@@ -129,3 +129,11 @@ def test_fit_weighted_and_early_stop():
 def test_invalid_arch_raises():
     with pytest.raises(ValueError):
         Flow(2, "bogus")
+
+
+@pytest.mark.parametrize("flag", ["use_pallas", "use_pallas_inverse"])
+def test_removed_pallas_flags_raise(flag):
+    # the Pallas kernels behind these flags were deleted; configs that
+    # still pass them must fail loudly instead of being silently ignored
+    with pytest.raises(TypeError):
+        Flow(3, "nsf3", **{flag: True})

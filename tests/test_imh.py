@@ -97,7 +97,7 @@ def test_imh_refresh_mixing_preserves_target_and_decorrelates():
     # its measured speedup regime is high-d sigma-capped sweeps —
     # gauss50 dose-response, RESULTS.md round 4 "independence refresh".)
     # Margin verified over seeds 0-4: ratio 0.74-1.40, median 0.89
-    # (.round5/imh_seeds.py; RESULTS.md round 5 test_imh postmortem) —
+    # (RESULTS.md round 5 test_imh postmortem) —
     # the drift-test MIN_CALIB_N guard in mcmc.py is what keeps
     # refresh-dominated windows from pinning hot=1 and doubling calls.
     assert calls[2] < 1.5 * calls[0]

@@ -6,7 +6,7 @@ programs — sharded reductions, per-host black-box likelihood fan-out,
 the adaptive t-pCN sweep, full end-to-end `Sampler.run()` inferences
 (device-resident loop AND host orchestration with per-process
 shard_callback fan-out), and a mid-run checkpoint resumed under the
-mesh.  This is the TPU-native counterpart of the reference's
+mesh.  This is the device-mesh counterpart of the reference's
 `mpiexec -n N` integration story
 (/root/reference/pocomc/parallel.py:20-178); workers must produce
 bit-identical global results (launch() enforces checksum agreement).

@@ -19,17 +19,101 @@ from pocomc_tpu.utils.tools import enable_compile_cache
 # compile cache
 # ---------------------------------------------------------------------
 
-def test_compile_cache_helper_sets_config(tmp_path):
-    p = enable_compile_cache(str(tmp_path / "cache"))
-    # either our path was installed or a pre-existing configured dir was
-    # respected -- both are success modes; None would mean "disabled"
-    assert p is not None
-    assert jax.config.jax_compilation_cache_dir == p
+@pytest.fixture
+def no_cache_dir(monkeypatch):
+    """A process with no compile-cache directory configured yet; the
+    previous configuration is restored afterwards."""
+    prev = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.delenv("POCOMC_COMPILE_CACHE", raising=False)
+    jax.config.update("jax_compilation_cache_dir", None)
+    yield
+    jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_compile_cache_helper_sets_config(no_cache_dir):
+    # unset environment: the one in-checkout directory, on every call
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    expect = os.path.join(repo, ".jax_cache")
+    assert enable_compile_cache() == expect
+    assert jax.config.jax_compilation_cache_dir == expect
+    assert enable_compile_cache() == expect
+    assert os.path.isdir(expect)
+
+
+def test_compile_cache_uses_env_dir(no_cache_dir, monkeypatch, tmp_path):
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "xla"))
+    assert enable_compile_cache() == str(tmp_path / "xla")
+    assert jax.config.jax_compilation_cache_dir == str(tmp_path / "xla")
+
+
+def test_compile_cache_respects_configured_dir(no_cache_dir, tmp_path):
+    jax.config.update("jax_compilation_cache_dir", str(tmp_path / "mine"))
+    assert enable_compile_cache() == str(tmp_path / "mine")
+    assert jax.config.jax_compilation_cache_dir == str(tmp_path / "mine")
 
 
 def test_compile_cache_env_off(monkeypatch):
     monkeypatch.setenv("POCOMC_COMPILE_CACHE", "off")
     assert enable_compile_cache() is None
+
+
+# ---------------------------------------------------------------------
+# progress line
+# ---------------------------------------------------------------------
+
+def test_progress_bar_line():
+    import io
+    from pocomc_tpu.utils.tools import ProgressBar
+    out = io.StringIO()
+    bar = ProgressBar(True, initial=3, stream=out)
+    bar.min_interval = 0.0
+    bar.update_stats(dict(beta=0.25, calls=1234, ESS=512.0))
+    bar.update_iter()
+    bar.update_stats(dict(beta=np.float64(1.0)))
+    bar.close()
+    text = out.getvalue()
+    assert text.endswith("\n")
+    assert text.split("\r")[-1].strip() == "Iter 4: beta=1, calls=1234, ESS=512"
+    quiet = io.StringIO()
+    bar = ProgressBar(False, stream=quiet)
+    bar.update_stats(dict(beta=0.5))
+    bar.update_iter()
+    bar.close()
+    assert quiet.getvalue() == ""
+
+
+def test_progress_bar_throttles_redraws():
+    import io
+    from pocomc_tpu.utils.tools import ProgressBar
+    out = io.StringIO()
+    bar = ProgressBar(True, stream=out)
+    bar.min_interval = 3600.0
+    for i in range(100):
+        bar.update_stats(dict(steps=i))
+    assert out.getvalue().count("\r") == 1  # only the first draw
+    bar.close()
+    assert out.getvalue().split("\r")[-1] == "Iter 0: steps=99\n"
+
+
+def test_main_path_runs_without_tqdm():
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['tqdm'] = None\n"
+            "import pocomc_tpu as pc, jax.numpy as jnp\n"
+            "s = pc.Sampler(pc.Prior([pc.Normal(0, 3)] * 2),\n"
+            "    lambda x: -0.5 * jnp.sum(x**2, axis=-1), vectorize=True,\n"
+            "    random_state=0, n_effective=64, n_active=32,\n"
+            "    precondition=False)\n"
+            "s.run(n_total=64, n_evidence=0, progress=True)\n"
+            "print('ok', 'tqdm' in sys.modules and sys.modules['tqdm'])\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok None")
+    assert "Iter" in res.stderr
 
 
 # ---------------------------------------------------------------------

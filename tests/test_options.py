@@ -159,3 +159,29 @@ def test_extra_distributions_sample_and_logpdf():
         pts = np.asarray(sd.rvs(size=20, random_state=0), dtype=np.float64)
         np.testing.assert_allclose(np.asarray(jd.logpdf(jnp.asarray(pts))),
                                    sd.logpdf(pts), rtol=1e-4, atol=1e-4)
+
+
+def _worker_platform(_):
+    import os
+    import jax
+    return os.environ.get("JAX_PLATFORMS"), jax.default_backend()
+
+
+def _np_gauss(x):
+    return float(-0.5 * np.sum(np.asarray(x) ** 2))
+
+
+def test_int_pool_workers_start_cpu_only():
+    # pool=<int> workers must never open the accelerator: one that
+    # unpickles a device array would reserve most of the card's memory
+    import os
+    before = os.environ.get("JAX_PLATFORMS")
+    prior = pc.Prior([pc.Normal(0, 3)] * 2)
+    s = pc.Sampler(prior, _np_gauss, pool=2, random_state=0,
+                   n_effective=64, n_active=32, precondition=False)
+    try:
+        assert s.pool.map(_worker_platform, range(4)) == [("cpu", "cpu")] * 4
+    finally:
+        s.pool.terminate()
+        s.pool.join()
+    assert os.environ.get("JAX_PLATFORMS") == before

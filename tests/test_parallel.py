@@ -62,7 +62,8 @@ def test_sharded_gradient_kernels(mesh, kind):
 
 def test_dryrun_multichip_entry():
     import sys
-    sys.path.insert(0, "/root/repo")
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as g
     g.dryrun_multichip(8)
 
